@@ -1,18 +1,18 @@
-"""bsmr_sddmm_tpu — a TPU-native block-structured SDDMM framework.
+"""bsmr_sddmm_tpu — a block-structured SDDMM framework in JAX.
 
-Built from scratch in JAX/Pallas with the capabilities of the CUDA reference
+Built from scratch in JAX with the capabilities of the CUDA reference
 BSMR-SDDMM (CX9898/BSMR-SDDMM): computes ``P = (A @ B) * S`` only where the
 sparse mask ``S`` is nonzero, by
 
 1. reordering the mask's rows by pattern similarity (threshold ``alpha``,
    reference: src/rowReordering.cu),
-2. splitting each row panel's columns into dense MXU-friendly tiles
+2. splitting each row panel's columns into dense tensor-core tiles
    (density threshold ``delta``, reference: src/colReordering.cu) plus a
    sparse COO residual,
-3. running a hybrid dense-tile kernel (MXU matmuls with scatter-back to CSR
-   order) next to a gather/segment residual path
+3. running a hybrid dense-tile kernel (batched matmuls, emitted back in
+   CSR order) next to a gather/segment residual path
    (reference: src/sddmmKernel.cu), and
-4. scaling across a TPU mesh by sharding row panels over devices
+4. scaling across a device mesh by sharding row panels over devices
    (new work; the reference is single-GPU).
 
 Layer map (mirrors SURVEY.md section 1 for the reference):

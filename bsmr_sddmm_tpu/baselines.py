@@ -1,14 +1,14 @@
-"""TPU baseline SDDMM implementations for the comparison methodology.
+"""Baseline SDDMM implementations for the comparison methodology.
 
 The reference vendors eight CUDA baselines (cuSPARSE, cuSDDMM, ASpT, RoDe,
 Sputnik, TCGNN, FlashSparse, BSA — SURVEY.md section 2b) and benchmarks BSMR
-against them with a shared log schema. Porting CUDA baselines is pointless
-on TPU; instead this module provides the *comparable baselines on TPU* the
-methodology needs:
+against them with a shared log schema. This module provides the
+comparable baselines in JAX that the methodology needs:
 
 * ``dense_masked`` — compute the full ``A @ B`` and gather the mask's
   entries. The cuSPARSE-analogue "just use the dense library" ceiling: it
-  wastes ``1/density`` of the flops but runs the MXU at peak.
+  wastes ``1/density`` of the flops but runs the tensor cores at full
+  rate.
 * ``bcoo`` — ``jax.experimental.sparse.bcoo_dot_general_sampled``, the
   stock JAX sparse SDDMM (library baseline, like cusparseSDDMM in
   baselines/cuSPARSE_SDDMM/src/cuSPARSE-main.cu:7-33).
@@ -42,25 +42,24 @@ def _round_up(n: int, m: int) -> int:
 
 def make_dense_masked_fn(csr: CSR, k: int,
                          tile_m: int = 512,
-                         precision: str = "highest") -> Callable:
+                         precision: str = "fp32") -> Callable:
     """Full-matmul baseline: P = (A @ B)[rows, cols].
 
     The matmul runs in row blocks of ``tile_m`` via lax.map so peak live
     memory is ``tile_m * N`` floats rather than ``M * N`` (a 503-matrix
-    suite includes M,N ~ 1e5-1e6; the full product would not fit HBM).
+    suite includes M,N ~ 1e5-1e6; the full product would not fit device
+    memory).
 
-    ``precision`` defaults to HIGHEST (true fp32) because the baseline
-    doubles as the accuracy ceiling; the framework's dense-fallback tier
-    builds the same fn with config.matmul_precision (bf16x3/HIGH) for
-    MXU-rate compute.
+    ``precision`` defaults to "fp32" because the baseline doubles as the
+    accuracy ceiling (precision.py names the algorithms).
     """
-    from bsmr_sddmm_tpu.ops.sddmm import _PRECISION
+    from bsmr_sddmm_tpu.precision import dot_algorithm
     rows = jnp.asarray(csr.coo_rows())
     cols = jnp.asarray(csr.col_indices.astype(np.int32))
     M = _round_up(csr.rows, tile_m)
     num_blocks = M // tile_m
     nnz = csr.nnz
-    prec = _PRECISION[precision]
+    prec = dot_algorithm(precision)
 
     def fn(A: jax.Array, Bt: jax.Array) -> jax.Array:
         A = A.astype(jnp.float32)

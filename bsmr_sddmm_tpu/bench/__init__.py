@@ -1,6 +1,6 @@
 """Benchmark harness: sweep runner, log analyzer, figure plotters.
 
-TPU-native port of the reference's scripts/ layer (SURVEY.md section 2c):
+A port of the reference's scripts/ layer (SURVEY.md section 2c):
 test_script.sh -> runner, analyze_results.cpp -> analyze, plot_*.py -> plot.
 """
 

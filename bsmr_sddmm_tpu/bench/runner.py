@@ -11,6 +11,10 @@ Port of the reference's scripts/test_script.sh:58-123 semantics:
 
 Baselines run through the same loop with the same schema, mirroring
 scripts/run_baseline.sh.
+
+The parent only spawns children and never initializes a JAX backend: a
+JAX process reserves most of a GPU's memory, so each child must have the
+card to itself.
 """
 
 from __future__ import annotations

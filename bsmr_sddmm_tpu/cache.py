@@ -9,7 +9,7 @@ column-split/packing stages.
 
 Cache key: SHA-256 over the CSR pattern (shape, row_offsets, col_indices)
 plus the clustering knobs. Entries are ``.npz`` files under the cache dir
-(``BSMR_CACHE_DIR`` or ``~/.cache/bsmr_sddmm_tpu``).
+(``BSMR_CACHE_DIR`` or the checkout's gitignored ``.bsmr_cache/``).
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ from bsmr_sddmm_tpu.reorder import BsmrReordering, row_reordering
 
 def cache_dir() -> str:
     d = os.environ.get("BSMR_CACHE_DIR") or os.path.join(
-        os.path.expanduser("~"), ".cache", "bsmr_sddmm_tpu")
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        ".bsmr_cache")
     os.makedirs(d, exist_ok=True)
     return d
 

@@ -1,7 +1,7 @@
 """CLI driver — reference parity with ./BSMR-sddmm (src/main.cu:6-42,
 include/Options.hpp:49-76): `-f` matrix file, `-k` K, `-a` alpha,
-`-d` delta, `-t` test mode, `-l` log dir, plus TPU-native extras
-(--backend, --panel-height, --validate)."""
+`-d` delta, `-t` test mode, `-l` log dir, plus extras (--backend,
+--panel-height, --validate, ...)."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="bsmr-sddmm",
-        description="TPU-native block-structured SDDMM (BSMR capabilities)")
+        description="Block-structured SDDMM (BSMR capabilities)")
     p.add_argument("-f", "--file", required=True, help="matrix file "
                    "(.mtx/.smtx/.txt, optionally .gz)")
     p.add_argument("-k", type=int, default=32, help="K dim (default 32)")
@@ -27,8 +27,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "src/sddmm.cu:62-118)")
     p.add_argument("-l", "--log-dir", default="",
                    help="directory for [key : value] log files")
-    p.add_argument("--backend", choices=["auto", "xla", "pallas"],
-                   default="auto")
+    p.add_argument("--backend", choices=["auto", "xla", "triton"],
+                   default="auto",
+                   help="auto = xla; triton runs the dense and packed "
+                        "tiers through the Pallas-Triton tile kernel")
     p.add_argument("--panel-height", type=int, default=32)
     p.add_argument("--col-mode", choices=["bsr", "reorder"], default="bsr")
     p.add_argument("--residual-mode", choices=["gathered", "pernnz"],
@@ -85,6 +87,8 @@ def main(argv=None) -> int:
                                        SddmmConfig)
     from bsmr_sddmm_tpu.formats import load_matrix, make_dense
     from bsmr_sddmm_tpu.sddmm import BsmrSddmm
+    from bsmr_sddmm_tpu.utils.compilecache import enable_compile_cache
+    enable_compile_cache()
 
     csr = load_matrix(args.file)
     name = os.path.basename(args.file)

@@ -42,10 +42,10 @@ class ReorderingEvaluation:
 
     @property
     def dense_coverage(self) -> float:
-        """Fraction of nonzeros on an MXU-tile tier (BSR + packed)."""
-        mxu = self.dense_nnz + self.packed_nnz
-        total = mxu + self.gathered_nnz + self.residual_nnz
-        return mxu / total if total else 0.0
+        """Fraction of nonzeros on a dense-tile tier (BSR + packed)."""
+        tiled = self.dense_nnz + self.packed_nnz
+        total = tiled + self.gathered_nnz + self.residual_nnz
+        return tiled / total if total else 0.0
 
     def as_extras(self) -> Dict[str, str]:
         """Logger extras in the reference's key style."""

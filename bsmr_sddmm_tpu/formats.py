@@ -1,6 +1,6 @@
 """Sparse/dense matrix containers and file IO.
 
-TPU-native re-design of the reference data layer (include/Matrix.hpp:40-401,
+A re-design of the reference data layer (include/Matrix.hpp:40-401,
 src/Matrix.cpp:17-954): plain NumPy arrays with vectorized parsers instead of
 C++ line-by-line readers, with the same validation semantics (duplicate
 entries, out-of-range indices and wrong counts are rejected —

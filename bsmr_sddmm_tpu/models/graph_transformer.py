@@ -96,9 +96,8 @@ def make_forward(model: GraphTransformer, csr: CSR,
         q = (x @ layer_params["wq"]).reshape(n_nodes, h, hd)
         kk = (x @ layer_params["wk"]).reshape(n_nodes, h, hd)
         v = (x @ layer_params["wv"]).reshape(n_nodes, h, hd)
-        # static loop (not vmap): batching a pallas_call inserts a batch
-        # dimension into its BlockSpecs, which Mosaic's tiling rejects;
-        # the per-head kernel is compiled once and reused
+        # static loop over heads: the per-head body is traced once per
+        # head and shares one plan (a batched head axis is future work)
         heads = jnp.stack([head_fn(q[:, h_], kk[:, h_], v[:, h_], dplan)
                            for h_ in range(h)], axis=1)
         return heads.reshape(n_nodes, d) @ layer_params["wo"]

@@ -6,12 +6,12 @@ covers the GNN side; this module is the sequence side: a decoder-style
 transformer whose attention is restricted to a *fixed sparse mask* (causal
 local window + strided global summaries, the Sparse Transformers /
 Longformer family of patterns). The mask is a CSR matrix, so the whole
-BSMR pipeline applies: the mask is reordered, packed into MXU tiles once,
+BSMR pipeline applies: the mask is reordered, packed into tiles once,
 and every layer/head/step runs the hybrid SDDMM for its attention logits.
 
 Banded masks are the framework's best regime (natural column blocks →
 zero-gather BSR tiles), which is exactly why fixed-pattern sparse
-attention is the killer app for this kernel on TPU.
+attention is the killer app for this kernel.
 """
 
 from __future__ import annotations
@@ -130,9 +130,8 @@ def make_forward(model: SparseTransformer,
         q = (x @ lp["wq"]).reshape(n, h, hd)
         kk = (x @ lp["wk"]).reshape(n, h, hd)
         v = (x @ lp["wv"]).reshape(n, h, hd)
-        # static loop (not vmap): batching a pallas_call inserts a batch
-        # dimension into its BlockSpecs, which Mosaic's tiling rejects;
-        # the per-head kernel is compiled once and reused
+        # static loop over heads: the per-head body is traced once per
+        # head and shares one plan (a batched head axis is future work)
         heads = jnp.stack([head_fn(q[:, h_], kk[:, h_], v[:, h_], dplan)
                            for h_ in range(h)], axis=1)
         return heads.reshape(n, d) @ lp["wo"]

@@ -1,6 +1,6 @@
 """Native (C++/OpenMP) preprocessing runtime.
 
-The reference's entire core is C++/CUDA; this package is the TPU
+The reference's entire core is C++/CUDA; this package is the
 framework's native layer for host-side hot loops (greedy row clustering —
 the dominant preprocessing cost, reference median 1.11 s/matrix on GPU).
 The shared library is compiled on first use with g++ (no pybind11 in this

@@ -1,4 +1,4 @@
-"""Compute kernels: hybrid dense-tile / sparse-residual SDDMM on TPU."""
+"""Compute kernels: hybrid dense-tile / sparse-residual SDDMM."""
 
 from bsmr_sddmm_tpu.ops.sddmm import (
     DevicePlan,

@@ -2,15 +2,14 @@
 
 The hybrid SDDMM's natural output is the plan's own three-tier layout
 (`emit="rphm"`: dense tiles, gathered tiles, per-nnz residual). Consumers
-that round-trip through CSR order pay a ~140 M elem/s element gather per
-conversion; these ops instead run the rest of sparse attention *in tile
-layout*:
+that round-trip through CSR order pay an element gather per conversion;
+these ops instead run the rest of sparse attention *in tile layout*:
 
     scores (rphm) -> edge_softmax_rphm -> alpha (rphm)
     alpha (rphm), V -> spmm_rphm -> (M, F) node features
 
-Row-wise reductions become per-tile VPU reductions + tiny segment ops
-over panels; the SpMM's dense tier is per-tile (ph, bw) @ (bw, F) MXU
+Row-wise reductions become per-tile reductions + tiny segment ops
+over panels; the SpMM's dense tier is per-tile (ph, bw) @ (bw, F)
 matmuls against *contiguous* V blocks — the same zero-gather property the
 SDDMM's dense tier enjoys. Nothing in this file touches per-element
 indexing except the small per-nnz residual tier.
@@ -28,8 +27,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from bsmr_sddmm_tpu.ops.sddmm import _PRECISION, DevicePlan
+from bsmr_sddmm_tpu.ops.sddmm import DevicePlan
 from bsmr_sddmm_tpu.pack import TilePlan
+from bsmr_sddmm_tpu.precision import dot_algorithm
 
 _NEG = -1e30  # mask value; avoids inf-inf NaNs in empty rows
 
@@ -38,7 +38,7 @@ def make_edge_softmax_rphm(plan: TilePlan) -> Callable:
     """Build ``fn(dense, packed, gathered, res, dplan) -> same 4-tuple``
     normalizing scores row-wise (numerically stable) entirely in the
     four-tier rphm layout (no tier is ever concatenated — that would
-    copy the full dense output through HBM)."""
+    copy the full dense output through device memory)."""
     P = max(plan.num_panels, 1)
     ph = plan.panel_height
     nnz = plan.nnz
@@ -109,12 +109,12 @@ def make_edge_softmax_rphm(plan: TilePlan) -> Callable:
     return fn
 
 
-def make_spmm_rphm(plan: TilePlan, precision: str = "high") -> Callable:
+def make_spmm_rphm(plan: TilePlan, precision: str = "tf32") -> Callable:
     """Build ``fn(dense, packed, gathered, res, V, dplan) -> (M, F)``:
     ``out[r] = sum_e vals[e] * V[col[e]]`` with values in the four-tier
     rphm layout and the output in ORIGINAL row order.
 
-    Dense tier: per-tile (ph, bw) @ contiguous V block (MXU, zero gather)
+    Dense tier: per-tile (ph, bw) @ contiguous V block (zero gather)
     in bsr mode; in reorder mode (column-permuted plans, tile_cblock is
     None) the tile's V rows are gathered per tile column from
     ``plan.tile_cols`` — same path the gathered tier uses.
@@ -128,7 +128,7 @@ def make_spmm_rphm(plan: TilePlan, precision: str = "high") -> Callable:
     N = plan.cols
     n_cblocks = -(-N // bw)
     M = plan.rows
-    prec = _PRECISION[precision]
+    prec = dot_algorithm(precision)
     bsr_mode = plan.tile_cblock is not None
     # per-tile cblock (fat plans store per-step ids in dplan.tile_src);
     # reorder-mode plans instead carry per-tile column ids in tile_cols
@@ -220,12 +220,12 @@ def make_spmm_rphm(plan: TilePlan, precision: str = "high") -> Callable:
 
 
 def make_spmm_transpose_rphm(plan: TilePlan,
-                             precision: str = "high") -> Callable:
+                             precision: str = "tf32") -> Callable:
     """Build ``fn(dense, packed, gathered, res, A_full, dplan) -> (N, F)``:
     the column-side aggregation ``out[c] = sum_e vals[e] * A[row_e]`` —
     the transpose counterpart of :func:`make_spmm_rphm`, needed for the
     SDDMM backward pass (dB^T). Dense tier: per-tile (bw, ph) @ A panel on
-    the MXU, segment-summed by column block (contiguous landing) in bsr
+    batched matmuls, segment-summed by column block (contiguous landing) in bsr
     mode, scatter-added per tile column (``plan.tile_cols``) in reorder
     mode; gathered tier scatter-adds per tile column; residual per
     entry."""
@@ -234,7 +234,7 @@ def make_spmm_transpose_rphm(plan: TilePlan,
     nnz = plan.nnz
     N = plan.cols
     n_cblocks = -(-N // bw)
-    prec = _PRECISION[precision]
+    prec = dot_algorithm(precision)
     bsr_mode = plan.tile_cblock is not None
     tile_cblock = (jnp.asarray(plan.tile_cblock) if bsr_mode
                    else None)
@@ -309,10 +309,10 @@ def make_spmm_transpose_rphm(plan: TilePlan,
 
 
 def make_diff_sddmm_body(plan: TilePlan, body: Callable,
-                         precision: str = "high") -> Callable:
+                         precision: str = "tf32") -> Callable:
     """Wrap a ``make_sddmm_body(..., emit="rphm")`` callable with a custom
-    VJP so models can train through the Pallas kernels (pallas_call has no
-    autodiff rule). The backward pass is itself tile-native:
+    VJP, so models can train through either backend (a pallas_call has
+    no autodiff rule). The backward pass is itself tile-native:
 
         dA  = SpMM(dP, B^T)            (make_spmm_rphm)
         dB^T = SpMM^T(dP, A)           (make_spmm_transpose_rphm)
@@ -342,7 +342,7 @@ def make_diff_sddmm_body(plan: TilePlan, body: Callable,
 
 
 def make_sparse_attention_rphm(plan: TilePlan, body: Callable,
-                               precision: str = "high") -> Callable:
+                               precision: str = "tf32") -> Callable:
     """Fused tile-native attention head: ``fn(q, k, v, dplan) -> (M, F)``
     = SpMM(softmax(SDDMM(q, k) / sqrt(dk)), v), never leaving the rphm
     layout and differentiable end to end (the SDDMM gets the tile-native

@@ -5,7 +5,7 @@ BSA_SpMM (SURVEY.md section 2b) — reordered block-structured *SpMM* —
 so the framework exposes SpMM as a first-class op: the CSR matrix's
 values are packed once into the plan's rphm layout (a host-side scatter
 along the plan's static maps) and every call is the tile-native
-aggregation of ops/graph_rphm (dense tier = per-tile MXU matmuls against
+aggregation of ops/graph_rphm (dense tier = per-tile matmuls against
 contiguous V blocks).
 """
 
@@ -39,7 +39,7 @@ def pack_values_rphm(plan: TilePlan, values: np.ndarray
     return dense, packed, gathered, res
 
 
-def make_spmm_fn(plan: TilePlan, precision: str = "high") -> Callable:
+def make_spmm_fn(plan: TilePlan, precision: str = "tf32") -> Callable:
     """Build jitted ``fn(dense, packed, gathered, res, V, dplan) ->
     (M, F)`` — the tile-layout SpMM (values from
     :func:`pack_values_rphm` or a previous SDDMM/softmax in rphm

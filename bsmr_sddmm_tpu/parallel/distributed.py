@@ -1,7 +1,7 @@
 """Multi-host initialization and scaling measurement helpers.
 
 The reference is single-process/single-GPU (SURVEY.md section 2d); this
-is the framework's *new* distributed layer. Usage on a TPU pod slice:
+is the framework's *new* distributed layer. Usage on several hosts:
 
     from bsmr_sddmm_tpu.parallel import distributed
     distributed.initialize()          # jax.distributed, once per process
@@ -71,7 +71,8 @@ def sddmm_weak_scaling(device_counts: Sequence[int],
 
     Returns the weak_scaling() dict. On a virtual CPU mesh this validates
     the scaling *structure* (per-shard shapes constant, no combine in the
-    hot path); on real chips it measures ICI-relative efficiency."""
+    hot path); on real devices it measures the interconnect-relative
+    efficiency."""
     from bsmr_sddmm_tpu.config import SddmmConfig
     from bsmr_sddmm_tpu.datasets import banded
     from bsmr_sddmm_tpu.formats import make_dense

@@ -15,8 +15,8 @@ emission is one gather along a precomputed global map; under jit, GSPMD
 inserts the all-gather it implies.
 
 Everything compiles under ``jax.sharding.Mesh`` + ``shard_map``, so the
-same code runs on N real TPU chips over ICI or on a virtual CPU mesh
-(tests / the driver's dryrun)."""
+same code runs on N GPUs (collectives through NCCL) or on a virtual CPU
+mesh (tests, __graft_entry__.dryrun_multichip)."""
 
 from __future__ import annotations
 
@@ -38,8 +38,7 @@ AXIS = "panels"
 
 def make_mesh(n_devices: Optional[int] = None,
               devices: Optional[list] = None) -> Mesh:
-    """1-D mesh over the row-panel axis. On a pod slice this should be the
-    ICI-contiguous device order (jax.devices() already is for 1-D)."""
+    """1-D mesh over the row-panel axis."""
     if devices is None:
         devices = jax.devices()
         if n_devices is not None:
@@ -220,8 +219,8 @@ def make_sharded_sddmm(csr: CSR, reord: BsmrReordering,
       come back replicated in original CSR value order.
 
     ``b_sharded=True`` stores B column panels 1/n per device (the
-    memory-scalable layout for large B) and all-gathers over ICI inside
-    the mapped body.
+    memory-scalable layout for large B) and all-gathers them inside the
+    mapped body.
     """
     n = mesh.devices.size
     plans = pack_shard_plans(csr, reord, config, n, k=k)
@@ -231,7 +230,7 @@ def make_sharded_sddmm(csr: CSR, reord: BsmrReordering,
 
     def shard_body(A, Bt, dplan):
         if b_sharded:
-            # (N/n, K) shard -> full (N, K): one all-gather over ICI
+            # (N/n, K) shard -> full (N, K): one all-gather
             Bt = jax.lax.all_gather(Bt, AXIS, axis=0, tiled=True)
         return body(A, Bt, dplan)
 

@@ -450,18 +450,18 @@ def col_reordering(csr: CSR, reord: BsmrReordering,
 def col_split_bsr(csr: CSR, reord: BsmrReordering,
                   config: SddmmConfig,
                   delta: Optional[float] = None) -> BsmrReordering:
-    """TPU-first column split: no column permutation. A panel's dense tiles
+    """Natural-block column split: no column permutation. A panel's dense tiles
     are the *natural* ``block_width``-wide column blocks whose in-panel nnz
     meets ``ceil(delta * panel_height * block_width)``; everything else is
     residual. Emits the same field structure as :func:`col_reordering`
     (dense_cols are the blocks' own columns, ascending, sentinel-padded at
     the matrix edge) so packing, checking and execution are shared.
 
-    Rationale: the reference gathers reordered columns per tile because on
-    GPU the L2 makes gathered B reads ~free (SURVEY.md section 6); on TPU a
-    512-byte-granular HBM gather runs ~5x below peak, while a contiguous
-    block slice DMAs at full bandwidth, so trading tile density for zero
-    gather traffic wins.
+    Rationale: the reference gathers reordered columns per tile because
+    the GPU's L2 makes gathered B reads cheap (SURVEY.md section 6); this
+    split trades tile density for zero gather traffic instead. Which one
+    wins per matrix is a measurement (col_mode="reorder" keeps the
+    reference's split).
     """
     t0 = time.perf_counter()
     delta = config.delta if delta is None else delta

@@ -22,6 +22,7 @@ class CheckResult:
     num_errors: int
     total: int
     first_errors: List[Tuple[int, float, float]]
+    max_rel_err: float = 0.0   # worst |a - b| / max(|a|, |b|)
 
     @property
     def error_rate(self) -> float:
@@ -53,4 +54,5 @@ def check_data(expected: np.ndarray, actual: np.ndarray,
     first = [(int(i), float(expected[i]), float(actual[i]))
              for i in bad[:max_report]]
     return CheckResult(passed=bad.size == 0, num_errors=int(bad.size),
-                       total=int(expected.size), first_errors=first)
+                       total=int(expected.size), first_errors=first,
+                       max_rel_err=float(rel_diff.max(initial=0.0)))

@@ -2,7 +2,7 @@
 
 The reference's only profiling mechanism is CUDA-event phase timers
 flowing into the Logger (include/CudaTimeCalculator.cuh:14-54 — SURVEY.md
-section 5). The TPU equivalents here:
+section 5). The equivalents here:
 
 * phase wall timers with the same Logger integration (`phase_timer`),
 * `jax.profiler` trace capture for xprof/tensorboard (`trace`),

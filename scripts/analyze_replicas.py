@@ -2,7 +2,8 @@
 (file,M,N,NNZ,Sparsity,K,BSMR,<baselines>) plus a per-matrix comparison
 against the reference's committed RTX-4090 best-BSMR numbers.
 
-Writes results/v5e_r2/results_128.csv and prints geomeans + accuracy.
+Usage: analyze_replicas.py [log_dir [out_dir [K]]]; writes
+<out_dir>/results_<K>.csv and prints geomeans + accuracy.
 """
 import csv
 import glob
@@ -17,8 +18,8 @@ from bsmr_sddmm_tpu.replicas import load_manifest
 
 
 def main() -> int:
-    log_dir = sys.argv[1] if len(sys.argv) > 1 else "results/v5e_r3/logs"
-    out_dir = sys.argv[2] if len(sys.argv) > 2 else "results/v5e_r3"
+    log_dir = sys.argv[1] if len(sys.argv) > 1 else "logs/replica_logs"
+    out_dir = sys.argv[2] if len(sys.argv) > 2 else "logs"
     k = int(sys.argv[3]) if len(sys.argv) > 3 else 128
     results = parse_log_files(sorted(glob.glob(os.path.join(log_dir,
                                                             "*.log"))))

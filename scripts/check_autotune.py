@@ -1,4 +1,4 @@
-"""Autotune-vs-sweep-best check (VERDICT r2 next-item 6 done-criterion).
+"""Autotune-vs-sweep-best check.
 
 For each bench-suite matrix and K, compare the cost model's pick
 (autotune.choose_delta at alpha=0.3 over the bench config grid) against
@@ -6,10 +6,11 @@ the MEASURED best from a bench sweep log (the ``# name a=.. d=.. k=..:
 G GFLOPS`` stderr lines bench.py emits). Reports, per (matrix, K), the
 measured throughput of the chosen config as a fraction of the measured
 sweep best — the reference analogue is picking delta by on-hardware
-sweep (scripts/test_script.sh); the TPU answer is the calibrated cost
-model, and this script quantifies how much it leaves on the table.
+sweep (scripts/test_script.sh); here it is the calibrated cost model,
+and this script quantifies how much it leaves on the table.
 
-Host-only (packing + prediction); uses the committed v5e calibration.
+Host-only (packing + prediction); prices with the H100 cost-table row
+(autotune.COSTS).
 """
 import argparse
 import collections
@@ -53,10 +54,11 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     from bsmr_sddmm_tpu.utils.hostmem import tune_malloc
-    tune_malloc()   # packing is allocation-bound on this host (PERF.md)
-    from bsmr_sddmm_tpu.utils.compilecache import enable_compile_cache
-    enable_compile_cache()   # reuse XLA executables across runs
+    tune_malloc()   # packing is allocation-bound (utils/hostmem.py)
+    from bsmr_sddmm_tpu import autotune
     from bsmr_sddmm_tpu.autotune import choose_config, choose_delta
+    # host-only: price with the H100 row whatever this host is
+    autotune.install_costs(autotune.COSTS[autotune.H100_KIND])
     from bsmr_sddmm_tpu.config import SddmmConfig
     from bsmr_sddmm_tpu.datasets import SUITE
     from bsmr_sddmm_tpu.sddmm import BsmrSddmm

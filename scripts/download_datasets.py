@@ -1,6 +1,6 @@
 """Dataset acquisition: fetch the reference's evaluation datasets.
 
-TPU-native analogue of the reference's acquisition scripts
+The analogue of the reference's acquisition scripts
 (scripts/download_suiteSparse_dataset.sh — wget loop over
 sparse.tamu.edu/MM/<group>/<name>.tar.gz; download_dlmc_dataset.sh —
 clone of the DLMC pruned-transformer set plus smtx->mtx conversion;

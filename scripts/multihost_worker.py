@@ -6,13 +6,12 @@ Each process initializes jax.distributed against a local coordinator,
 contributes 2 virtual CPU devices to a (2 * nproc)-device global mesh,
 and runs the per-shard-packed shard_map hybrid SDDMM with B column
 panels sharded across the GLOBAL mesh (the in-body all_gather crosses
-the process boundary over gloo — on a TPU pod this same code crosses
-DCN/ICI). Every process checks the full CSR-order output against the
+the process boundary over gloo — across GPU hosts this same code goes
+through NCCL). Every process checks the full CSR-order output against the
 fp64 oracle and prints one JSON line.
 
-This is the real multi-process bootstrap path (VERDICT r2 missing #4:
-`jax.distributed.initialize` had never run with >1 process). Driven by
-tests/test_multihost.py and scripts/run_multihost_smoke.sh.
+This is the real multi-process bootstrap path. Driven by
+tests/test_multihost.py.
 """
 import json
 import os
@@ -32,6 +31,7 @@ jax.distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
 import numpy as np                                       # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
+from bsmr_sddmm_tpu import autotune                      # noqa: E402
 from bsmr_sddmm_tpu.config import SddmmConfig            # noqa: E402
 from bsmr_sddmm_tpu.datasets import banded               # noqa: E402
 from bsmr_sddmm_tpu.formats import make_dense            # noqa: E402
@@ -40,6 +40,10 @@ from bsmr_sddmm_tpu.parallel.sharding import (           # noqa: E402
     make_mesh, make_sharded_sddmm, shard_operands)
 from bsmr_sddmm_tpu.reorder import bsmr                  # noqa: E402
 from bsmr_sddmm_tpu.utils.checkdata import check_data    # noqa: E402
+
+# the CPU has no cost table of its own: shard balancing prices with the
+# H100 row
+autotune.install_costs(autotune.COSTS[autotune.H100_KIND], "cpu")
 
 n_global = jax.device_count()
 assert n_global == 2 * nproc, (n_global, nproc)
@@ -66,7 +70,7 @@ expected = sddmm_ref(A, Bt.T, csr)
 res = check_data(expected, out_np)
 
 # ring layout: B stays sharded; lax.ppermute panel rotation crosses the
-# process boundary each hop (gloo here; ICI/DCN on a pod)
+# process boundary each hop (gloo here; NCCL across GPU hosts)
 from bsmr_sddmm_tpu.parallel.ring import (                # noqa: E402
     make_ring_sddmm, ring_operands)
 fn_ring, rplan = make_ring_sddmm(csr, reord, cfg, mesh, emit="csr")

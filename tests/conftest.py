@@ -1,6 +1,6 @@
-"""Test env: run everything on CPU with 8 virtual devices so multi-chip
-sharding logic is exercised without TPU hardware (SURVEY.md section 4 item 7).
-Must run before jax initializes a backend."""
+"""Test env: run everything on CPU with 8 virtual devices so multi-device
+sharding logic is exercised without accelerators (SURVEY.md section 4
+item 7). Must run before jax initializes a backend."""
 
 import os
 
@@ -12,8 +12,11 @@ if "host_platform_device_count" not in _flags:
 import jax
 
 # env vars don't reliably beat an externally-selected platform plugin;
-# the config API does (must run before the backend initializes)
-jax.config.update("jax_platforms", "cpu")
+# the config API does (must run before the backend initializes). The CPU
+# unless JAX_PLATFORMS names another platform (the gpu-marked tests on
+# the card: JAX_PLATFORMS=cuda python -m pytest -m gpu tests/)
+jax.config.update("jax_platforms",
+                  os.environ.get("JAX_PLATFORMS") or "cpu")
 
 import numpy as np
 import pytest
@@ -33,6 +36,25 @@ def pytest_collection_modifyitems(config, items):
     for item in items:
         if "slow" in item.keywords:
             item.add_marker(skip)
+
+
+@pytest.fixture(autouse=True, scope="session")
+def cpu_cost_table():
+    """The CPU has no cost table of its own (autotune.current_costs raises
+    for it); tests price plans with the H100 row, passed explicitly."""
+    from bsmr_sddmm_tpu import autotune
+    autotune.install_costs(autotune.COSTS[autotune.H100_KIND], "cpu")
+    yield
+    autotune._INSTALLED.pop("cpu", None)
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX's first device is a GPU (tests marked ``gpu``)."""
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs an NVIDIA GPU; run on the card with "
+                    "JAX_PLATFORMS=cuda pytest -m gpu")
+    return jax.devices()[0]
 
 
 @pytest.fixture(scope="session")

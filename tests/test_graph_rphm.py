@@ -16,7 +16,7 @@ from bsmr_sddmm_tpu.ops.sddmm import device_plan, make_sddmm_body
 from bsmr_sddmm_tpu.pack import pack_tiles
 from bsmr_sddmm_tpu.reorder import bsmr
 
-from tests.conftest import make_ab
+from conftest import make_ab
 
 
 def _setup(delta=0.05, rows=512, cols=768, nnz=20000, seed=7,

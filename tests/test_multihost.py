@@ -4,12 +4,9 @@ Two OS processes bootstrap with ``jax.distributed.initialize``, form one
 4-device global mesh (2 virtual CPU devices each), and run the
 per-shard-packed shard_map SDDMM with B column panels sharded across the
 global mesh — the in-body all_gather crosses the process boundary (gloo
-on CPU; DCN/ICI on a pod) — and the ring layout, whose lax.ppermute
+on CPU; NCCL across GPU hosts) — and the ring layout, whose lax.ppermute
 B-panel rotation crosses the boundary on every hop. Both processes
 validate both full outputs against the fp64 oracle.
-
-The committed artifact of a real run lives in
-results/v5e_r3/multihost_2proc.json.
 """
 import json
 import os

@@ -114,69 +114,21 @@ def test_ring_uses_ppermute_not_all_gather():
     assert "all_gather" not in jaxpr
 
 
-def test_scaling_model_predictions():
-    """The analytic weak-scaling model must produce efficiencies in
-    (0, 1], overlapped >= blocking (hiding comm can only help), and a
-    near-balanced banded matrix must predict high efficiency at n=4."""
-    from bsmr_sddmm_tpu.parallel.scaling_model import predict_weak_scaling
-    csr = banded(4096, 120000, 96, seed=3)
-    cfg = SddmmConfig(k=128, panel_height=32, delta=0.006)
-    reord = bsmr(csr, cfg)
-    for n in (2, 4, 8):
-        pred = predict_weak_scaling(csr, reord, cfg, n)
-        assert 0.0 < pred.efficiency_overlapped <= 1.0
-        assert 0.0 < pred.efficiency_blocking <= 1.0
-        assert (pred.efficiency_overlapped
-                >= pred.efficiency_blocking - 1e-9)
-        assert pred.imbalance >= 1.0
-        assert len(pred.shard_ms) == n
-    pred4 = predict_weak_scaling(csr, reord, cfg, 4)
-    assert pred4.efficiency_overlapped >= 0.8, pred4.to_dict()
-
-
-def test_choose_layout_is_the_cost_models_call():
-    """The ring layout drops the packed (hot-column) tier; choose_layout
-    prices both layouts and picks per matrix. A banded mask (no packed
-    tiles, comm hides under compute) must pick the ring; a hub mask whose
-    packed tier saves more compute than the all-gather costs must pick
-    the all-gather layout when comm is cheap."""
-    from bsmr_sddmm_tpu.datasets import banded as banded_gen, rmat
-    from bsmr_sddmm_tpu.parallel.scaling_model import choose_layout
-    cfg = SddmmConfig(k=128, panel_height=32, delta=0.006,
-                      subpack_min_nnz=12)
-    csr_b = banded_gen(8192, 500000, 96, seed=3)
-    ch_b = choose_layout(csr_b, bsmr(csr_b, cfg), cfg, 4)
-    assert ch_b.layout == "ring", ch_b.to_dict()
-    # hub-heavy power-law mask: packed tier displaces descriptor-bound
-    # work; with near-free ICI the all-gather's comm cost vanishes and
-    # the packed-tier advantage decides
-    csr_h = rmat(14, 200000, seed=5)
-    reord_h = bsmr(csr_h, cfg)
-    ch_free = choose_layout(csr_h, reord_h, cfg, 4, ici_gbps=1e9)
-    ag = max(ch_free.prediction_allgather.shard_ms)
-    ring = max(ch_free.prediction_ring.shard_ms)
-    if ag < ring:   # packed tier is predicted to help this mask
-        assert ch_free.layout == "allgather", ch_free.to_dict()
-    # with the tier disabled both arms price identically -> ring
-    cfg_nosub = cfg.replace(subpack_min_nnz=0)
-    ch_nosub = choose_layout(csr_h, bsmr(csr_h, cfg_nosub), cfg_nosub, 4)
-    assert ch_nosub.layout == "ring"
-
-
 def test_cost_balanced_shards_beat_nnz_on_skewed_mask():
     """On a mask whose tile density varies across row panels (power-law
     style), cost-balanced shard bounds must not be worse than the
     round-2 nnz bounds in predicted imbalance."""
-    from bsmr_sddmm_tpu.autotune import estimate_plan_ms
+    from bsmr_sddmm_tpu.autotune import COSTS, H100_KIND, estimate_plan_ms
     from bsmr_sddmm_tpu.pack import pack_shard_plans
     from bsmr_sddmm_tpu.datasets import rmat
+    costs = COSTS[H100_KIND]   # the table, passed explicitly
     csr = rmat(4096, 150000, seed=13)
     cfg = SddmmConfig(k=128, panel_height=32, delta=0.006)
     reord = bsmr(csr, cfg)
 
     def imbalance(balance):
         plans = pack_shard_plans(csr, reord, cfg, 4, balance=balance)
-        ms = [estimate_plan_ms(p) for p in plans]
+        ms = [estimate_plan_ms(p, costs) for p in plans]
         return max(ms) / (sum(ms) / len(ms))
 
     imb_cost = imbalance("cost")
